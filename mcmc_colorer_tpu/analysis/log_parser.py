@@ -190,8 +190,6 @@ def count_non_convergent(runs: list[dict]) -> int:
 
 
 _SPEEDUP_PAIRS = [
-    ("MCMC_CPU", "MCMC_TPU"),
-    ("LUBY", "MCMC_TPU"),
     ("MCMC_CPU", "MCMC_GPU"),
     ("LUBY", "MCMC_GPU"),
 ]
@@ -242,7 +240,7 @@ def per_iteration_speedups(results: dict) -> dict:
     return _pair_ratios(per_iter)
 
 
-def var_col_surface(results: dict, algo: str = "MCMC_TPU") -> dict:
+def var_col_surface(results: dict, algo: str = "MCMC_GPU") -> dict:
     """Balance index over the (numColRatio, density) grid — the data
     behind doVarCol3DGraph.py's surface plot (doVarCol3DGraph.py:40-50,
     k = n·p·colorRatio).  Returns {(ratio, prob): mean balance index}."""
@@ -296,7 +294,7 @@ def plot_speedup(
 
 
 def plot_var_col_3d(
-    results: dict, out_path: str, algo: str = "MCMC_TPU"
+    results: dict, out_path: str, algo: str = "MCMC_GPU"
 ) -> bool:
     """3D surface of balance index vs (numColRatio, density)
     (doVarCol3DGraph{,_new}.py)."""

@@ -4,12 +4,12 @@ Mirrors the reference CLI surface (ArgHandle.cpp:31-58, displayHelp
 :310-340): same long options (``--graph/--simulate/-n/--nCol/--numColRatio/
 --tabooIterations/--tailcut/--repet/--seed/--outDir`` and the five
 algorithm flags), same output contract (``<name>-<ALGO>-<rep>.log`` +
-``...-colors.txt`` in ``<graphName>_out``), plus TPU-native extensions
-(multi-chain ensembles, mesh sharding, proposal/backend selection).
+``...-colors.txt`` in ``<graphName>_out``), plus extensions (multi-chain
+ensembles, mesh sharding, proposal/backend selection).
 
 Algorithm naming note: ``--mcmcgpu``/``--lubygpu``/``--grdffgpu``/
-``--vffgpu`` run the device-parallel colorers (TPU here, GPU in the
-reference); ``--mcmccpu`` runs the sequential-semantics chain.
+``--vffgpu`` run the device-parallel colorers; ``--mcmccpu`` runs the
+sequential-semantics chain.
 """
 
 from __future__ import annotations
@@ -63,7 +63,7 @@ This work can be cited by adding the following items to your bibliografy:
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="mcmc-colorer",
-        description="TPU-native balanced graph coloring framework.",
+        description="Balanced graph coloring framework on JAX.",
         epilog=_CITATION,
     )
     ds = p.add_argument_group("Dataset")
@@ -151,21 +151,22 @@ def build_parser() -> argparse.ArgumentParser:
         "(ESC breaks into a print/edit shell with live-epsilon editing, "
         "reference src/utils/dbg.cpp)",
     )
-    tpu = p.add_argument_group("TPU scaling (no reference counterpart)")
-    tpu.add_argument(
+    ext = p.add_argument_group("Scaling (no reference counterpart)")
+    ext.add_argument(
         "--chains", type=int, default=1, help="independent chains (ensemble)"
     )
-    tpu.add_argument("--mesh-chains", type=int, default=0)
-    tpu.add_argument("--mesh-shards", type=int, default=0)
-    tpu.add_argument(
+    ext.add_argument("--mesh-chains", type=int, default=0)
+    ext.add_argument("--mesh-shards", type=int, default=0)
+    ext.add_argument(
         "--backend",
-        choices=["auto", "pallas", "xla", "matmul", "packed"],
+        choices=["auto", "xla", "matmul", "packed"],
         default="auto",
-        help="MCMC sweep backend: 'matmul' = dense-adjacency MXU "
-        "contraction, 'packed' = bit-packed MXU (forced); both are "
-        "MCMC-only — other colorers fall back to 'auto'",
+        help="MCMC sweep backend: 'xla' (= 'auto') gathers neighbor "
+        "colors; 'matmul' = adjacency contraction (dense where it fits "
+        "the device, else bit-packed), 'packed' = bit-packed (forced); "
+        "both are full-sweep MCMC only — other colorers ignore them",
     )
-    tpu.add_argument(
+    ext.add_argument(
         "--layout",
         choices=["flat", "bucketed"],
         default="flat",
@@ -173,10 +174,10 @@ def build_parser() -> argparse.ArgumentParser:
         "vertices by degree class (10-100x less gather volume on "
         "skewed-degree graphs)",
     )
-    tpu.add_argument(
+    ext.add_argument(
         "--anneal", action="store_true", help="pooled epsilon annealing"
     )
-    tpu.add_argument(
+    ext.add_argument(
         "--resident",
         action="store_true",
         help="with --simulate: define the ER graph as a stateless hash "
@@ -185,14 +186,14 @@ def build_parser() -> argparse.ArgumentParser:
         "--active frontier sweeps (rows sliced from the packed matrix); "
         "--check re-derives the identical graph host-side",
     )
-    tpu.add_argument(
+    ext.add_argument(
         "--ckpt",
         metavar="PATH",
         help="write a chain checkpoint (.npz) at every host-driven "
         "segment boundary; resident checkpoints exclude the graph "
         "(it re-derives from (n, p, seed) on load)",
     )
-    tpu.add_argument(
+    ext.add_argument(
         "--resume",
         metavar="PATH",
         help="resume repetition 0 from a checkpoint written by --ckpt "
@@ -200,7 +201,7 @@ def build_parser() -> argparse.ArgumentParser:
         "as the writing run: the default seed is the clock, and a "
         "resident resume refuses a mismatched graph seed",
     )
-    tpu.add_argument(
+    ext.add_argument(
         "--active",
         action="store_true",
         help="active-set / frontier mode: MCMC resamples only the conflict "
@@ -258,7 +259,7 @@ def _algos(args) -> list[ColorerKind]:
 
 _ALGO_TAG = {
     ColorerKind.MCMC_SEQ: "MCMC_CPU",
-    ColorerKind.MCMC: "MCMC_TPU",
+    ColorerKind.MCMC: "MCMC_GPU",
     ColorerKind.LUBY: "LUBY",
     ColorerKind.GREEDY_FF: "GFF",
     ColorerKind.VFF: "VFF",
@@ -266,18 +267,15 @@ _ALGO_TAG = {
 }
 
 
-def _device_backend(args) -> str:
-    """Backend for colorers without an MXU sweep (Luby/GFF/VFF, the
-    frontier and stepped MCMC drivers): the matmul/packed backends feed
-    the full-sweep NC contraction only."""
+def _note_backend_ignored(args) -> None:
+    """The matmul/packed backends feed the full-sweep NC contraction
+    only; the frontier, stepped, Luby/GFF/VFF colorers gather."""
     if args.backend in ("matmul", "packed"):
         print(
             f"--backend {args.backend} applies to full-sweep MCMC "
-            "colorers only; using 'auto' here.",
+            "colorers only; the gather sweep runs here.",
             file=sys.stderr,
         )
-        return "auto"
-    return args.backend
 
 
 def _check_resident_args(args) -> None:
@@ -327,7 +325,7 @@ def _check_resident_args(args) -> None:
             sys.exit(2)
     if args.backend not in ("auto", "matmul", "packed"):
         print(
-            f"--resident implies the packed-MXU backend; ignoring "
+            f"--resident implies the packed-matmul backend; ignoring "
             f"--backend {args.backend}.",
             file=sys.stderr,
         )
@@ -430,18 +428,15 @@ def _make_colorer(kind: ColorerKind, g: Graph, args, params: MCMCParams):
             # the stepped chain carries the same gated Hastings
             # accept/reject as the while-loop chain since round 4
             # (chain_api._step_segment), so --dbg --hastings works
+            _note_backend_ignored(args)
             return _DbgWrapper(
-                SteppedMCMC(
-                    g, params, backend=_device_backend(args), layout=args.layout
-                ),
-                DebugAttach(),
+                SteppedMCMC(g, params, layout=args.layout), DebugAttach()
             )
         if args.active:
             from mcmc_colorer_tpu.models.mcmc_active import ActiveMCMCColorer
 
-            return ActiveMCMCColorer(
-                g, params, backend=_device_backend(args), layout=args.layout
-            )
+            _note_backend_ignored(args)
+            return ActiveMCMCColorer(g, params, layout=args.layout)
         from mcmc_colorer_tpu.models.mcmc import MCMCColorer
 
         return MCMCColorer(
@@ -454,21 +449,13 @@ def _make_colorer(kind: ColorerKind, g: Graph, args, params: MCMCParams):
     if kind == ColorerKind.GREEDY_FF:
         from mcmc_colorer_tpu.models.greedy_ff import GreedyFFColorer
 
-        return GreedyFFColorer(
-            g,
-            backend=_device_backend(args),
-            active=args.active,
-            layout=args.layout,
-        )
+        _note_backend_ignored(args)
+        return GreedyFFColorer(g, active=args.active, layout=args.layout)
     if kind == ColorerKind.VFF:
         from mcmc_colorer_tpu.models.vff import VFFColorer
 
-        return VFFColorer(
-            g,
-            backend=_device_backend(args),
-            active=args.active,
-            layout=args.layout,
-        )
+        _note_backend_ignored(args)
+        return VFFColorer(g, active=args.active, layout=args.layout)
     if kind == ColorerKind.GREEDY_SEQ:
         from mcmc_colorer_tpu.models.greedy_seq import (
             SequentialGreedyColorer,
@@ -519,14 +506,9 @@ def main(argv=None) -> int:
         import os
 
         os.environ["MCMC_COLORER_TRACE"] = "1"
-    import os
+    from mcmc_colorer_tpu.utils import compcache
 
-    if os.environ.get("MCMC_COLORER_COMPILE_CACHE"):
-        # persistent XLA compile cache (cold-start mitigation for the
-        # remote-compile TPU path; utils/compcache.py)
-        from mcmc_colorer_tpu.utils import compcache
-
-        compcache.enable()
+    compcache.enable()
     if not args.quiet:
         print(_LOGO)
         print(_CITATION)
@@ -626,7 +608,7 @@ def main(argv=None) -> int:
             if not args.quiet:
                 print(
                     f"Resident graph materialised on device in "
-                    f"{inner.gen_seconds:.1f}s (zero bytes uploaded)."
+                    f"{inner.gen_seconds:.3f}s (zero bytes uploaded)."
                 )
             # --check re-derives the identical graph host-side (threaded
             # C++ hash enumeration) so validation runs against real

@@ -132,11 +132,10 @@ class RunConfig:
     repetitions: int = 1
     seed: int = field(default_factory=lambda: int(time.time()))
     out_dir: str | None = None
-    # TPU-specific extensions (no reference counterpart)
+    # extensions with no reference counterpart
     n_chains: int = 1                   # independent chains (vmapped/sharded)
-    mesh_chains: int = 1                # mesh axis sizes for multi-chip runs
+    mesh_chains: int = 1                # mesh axis sizes for multi-device runs
     mesh_shards: int = 1
-    use_pallas: bool = True             # fused resampling kernel vs pure XLA
     proposal: ProposalKind = ProposalKind.BALANCE_DYNAMIC
     hastings: bool = False
 

@@ -37,7 +37,6 @@ from mcmc_colorer_tpu.models.mcmc import (
     _reverse_logq_any,
     _slice_vec,
     _sweep_any,
-    _sweep_pallas_fused_any,
     _variant_distribution,
     choose_block_size,
 )
@@ -69,7 +68,6 @@ class SteppedMCMC:
         graph: Graph,
         params: MCMCParams,
         block_size: int | None = None,
-        backend: str = "auto",
         layout: str = "flat",
     ) -> None:
         """``layout='bucketed'``: stepped execution over degree-bucketed
@@ -78,40 +76,20 @@ class SteppedMCMC:
         self.graph = graph
         self.params = params
         self.block = block_size or choose_block_size(graph.n, params.n_colors)
-        if backend == "auto":
-            backend = (
-                "pallas"
-                if jax.default_backend() not in ("cpu", "gpu")
-                else "xla"
-            )
-        self.backend = backend
         self.layout = layout
-        from mcmc_colorer_tpu.graph.container import degree_pad_for
-
         if layout == "bucketed":
             self.block = min(self.block, 2048)
             g2, perm = graph.degree_relabel()
             self._perm = perm
-            self.ell = g2.to_ell_bucketed(
-                block=128,
-                min_lane=128 if backend == "pallas" else 8,
-            )
+            self.ell = g2.to_ell_bucketed(block=128)
             self._pos = self.ell.real_positions()
         elif layout == "flat":
             self._perm = None
-            self.ell = graph.to_ell(
-                pad_nodes_to=self.block,
-                pad_degree_to=degree_pad_for(graph, backend),
-            )
+            self.ell = graph.to_ell(pad_nodes_to=self.block)
         else:
             raise ValueError(f"unknown layout {layout!r}")
         self._step_k = jax.jit(
-            partial(
-                _step_segment,
-                params=params,
-                block=self.block,
-                backend=backend,
-            )
+            partial(_step_segment, params=params, block=self.block)
         )
 
     def init_state(self, seed: int, repetition: int = 0) -> ChainState:
@@ -153,8 +131,7 @@ class SteppedMCMC:
         checkpointing; resumes from ``resume_from`` if given.
         ``segment``: fixed sweeps per segment; None (default) adapts the
         segment length toward ~20 s of wall per device execution
-        (utils/segmented.py — single executions past ~60 s crash the
-        worker).
+        (utils/segmented.py).
 
         ``dbg``: a `utils.dbg.DebugAttach` — polled at every segment
         boundary (ESC on a tty, reference dbg.cpp:88-97); on break-in its
@@ -377,15 +354,8 @@ def _step_segment(
     *,
     params: MCMCParams,
     block: int,
-    backend: str,
 ):
     z = jnp.int32(params.tailcut_threshold(ell.n_nodes))
-
-    def sweep_fn(*a):
-        if backend == "pallas":
-            star, taboo, logq, _conf = _sweep_pallas_fused_any(*a)
-            return star, taboo, logq
-        return _sweep_any(*a)
 
     def body(st):
         def do(st):
@@ -399,7 +369,7 @@ def _step_segment(
                 else None
             )
             p_eff = _variant_distribution(params, hist, ell.n_nodes)
-            star, taboo, logq_star = sweep_fn(
+            star, taboo, logq_star = _sweep_any(
                 ell, params, block, st.colors, st.taboo, unif, p_eff, eps
             )
             conflicts_star = _conflict_edges_any(ell, star)

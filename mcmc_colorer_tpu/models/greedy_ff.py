@@ -32,10 +32,9 @@ class GreedyFFColorer:
         self,
         graph: Graph,
         block_size: int | None = None,
-        backend: str = "auto",
         active: bool = False,
         min_bucket: int = 128,
-        bucket_factor: int | None = None,
+        bucket_factor: int = 4,
         ell: EllGraph | None = None,
         layout: str = "flat",
     ) -> None:
@@ -44,30 +43,20 @@ class GreedyFFColorer:
         geometrically) are re-gathered each round — the GFF rendition of the
         active-set MCMC design (models/mcmc_active.py; PERF.md roadmap).
 
-        ``ell``: prebuilt device layout to reuse (must match block/backend
-        padding) — avoids holding a second [n_pad, d_pad] rectangle when a
+        ``ell``: prebuilt device layout to reuse (must match block padding) — avoids holding a second [n_pad, d_pad] rectangle when a
         caller (VFF phase 1) already owns one.
 
         ``layout='bucketed'``: degree-bucketed rectangles (see
         models/mcmc.py MCMCColorer) — the speculative rounds gather
         Σ h_b·d_b ≈ 2m elements instead of n·maxDeg; required on skewed
-        graphs whose flat rectangle exceeds HBM.  Composes with
+        graphs whose flat rectangle exceeds device memory.  Composes with
         ``active=True``: frontier rows are gathered per degree-class
         slice (ops/neighbor.py:take_rows)."""
         self.graph = graph
         self.max_colors = graph.max_degree + 1
         self.block = block_size or choose_block_size(graph.n, self.max_colors)
-        if backend == "auto":
-            backend = (
-                "pallas"
-                if jax.default_backend() not in ("cpu", "gpu")
-                else "xla"
-            )
-        self.backend = backend
         self.active = active
         self.layout = layout
-        from mcmc_colorer_tpu.graph.container import degree_pad_for
-
         if layout == "bucketed":
             if block_size is None:
                 self.block = min(self.block, 2048)
@@ -76,15 +65,13 @@ class GreedyFFColorer:
             g2, perm = graph.degree_relabel(descending=True)
             self._perm = perm
             self.ell = ell if ell is not None else g2.to_ell_bucketed(
-                block=128,
-                min_lane=128 if backend == "pallas" else 8,
+                block=128
             )
             self._pos = self.ell.real_positions()
         elif layout == "flat":
             self._perm = None
             self.ell = ell if ell is not None else graph.to_ell(
-                pad_nodes_to=max(self.block, 128),
-                pad_degree_to=degree_pad_for(graph, backend),
+                pad_nodes_to=max(self.block, 128)
             )
         else:
             raise ValueError(f"unknown layout {layout!r}")
@@ -94,25 +81,16 @@ class GreedyFFColorer:
                 _gff_segment,
                 max_colors=self.max_colors,
                 block=self.block,
-                backend=backend,
             )
         )
         self._jit_rounds: dict[int, object] = {}
         self._min_bucket = min_bucket
-        if bucket_factor is None:
-            # coarse ladder on the remote-compile TPU path (one kernel per
-            # rung; see models/mcmc_active.py), finer elsewhere
-            bucket_factor = 16 if self.backend == "pallas" else 4
         self._bucket_factor = bucket_factor
 
     def _round_fn(self, cap: int):
         if cap not in self._jit_rounds:
             self._jit_rounds[cap] = jax.jit(
-                partial(
-                    _gff_active_round,
-                    max_colors=self.max_colors,
-                    backend=self.backend,
-                ),
+                partial(_gff_active_round, max_colors=self.max_colors),
                 static_argnames=("cap",),
             )
         return self._jit_rounds[cap]
@@ -176,15 +154,12 @@ def _first_fit_pass(
     colors: jnp.ndarray,
     max_colors: int,
     block: int,
-    backend: str = "xla",
 ) -> jnp.ndarray:
     """tentative_coloring: smallest color not used by any neighbor
     (coloringGreedyFF.cu:88-128), for currently uncolored vertices."""
     from mcmc_colorer_tpu.models.mcmc import _is_bucketed, _slice_vec
 
     if _is_bucketed(ell):
-        from mcmc_colorer_tpu.ops.pallas_firstfit import pallas_palette_ok
-
         outs = []
         for s in ell.slices:
             h = s.h_pad
@@ -192,46 +167,20 @@ def _first_fit_pass(
             cur_s = _slice_vec(colors, s.start, h)
             # a vertex's smallest free color is <= its degree <= the
             # slice width, so each slice only needs a d_b+1 palette —
-            # this keeps the kernel's [block, palette] VMEM temporaries
-            # bounded even when maxDeg (hence max_colors) is huge
+            # this keeps the [block, palette] temporaries bounded even
+            # when maxDeg (hence max_colors) is huge
             pal = min(max_colors, s.d_pad + 1)
-            if backend == "pallas" and pallas_palette_ok(pal):
-                from mcmc_colorer_tpu.ops.pallas_firstfit import (
-                    pallas_first_fit,
-                )
+            blk = block if h % block == 0 else 128
 
-                ff = pallas_first_fit(
-                    nc,
-                    jnp.ones((pal,), jnp.int32),
-                    n_colors=pal,
-                    block=128,
-                )
-            else:
-                blk = block if h % block == 0 else 128
+            def block_fn(xs, pal=pal):
+                (nc_blk,) = xs
+                occ = occupancy_matrix(nc_blk, pal)
+                return jnp.argmax(~occ, axis=1).astype(jnp.int32)
 
-                def block_fn(xs):
-                    (nc_blk,) = xs
-                    occ = occupancy_matrix(nc_blk, pal)
-                    return jnp.argmax(~occ, axis=1).astype(jnp.int32)
-
-                ff = _map_blocks(
-                    block_fn, h // blk, blk, nc
-                ).reshape(h)
+            ff = _map_blocks(block_fn, h // blk, blk, nc).reshape(h)
             outs.append(jnp.where(cur_s < 0, ff, cur_s))
         return jnp.concatenate(outs)
     n_pad = ell.n_pad
-    if backend == "pallas":
-        from mcmc_colorer_tpu.ops.pallas_firstfit import pallas_first_fit
-
-        nc = neighbor_colors(ell.neighbors, colors)
-        first_free = pallas_first_fit(
-            nc,
-            jnp.ones((max_colors,), jnp.int32),
-            n_colors=max_colors,
-            block=min(block, 128),
-        )
-        # max_colors = maxDeg+1 guarantees a free color for real vertices
-        return jnp.where(colors < 0, first_free, colors)
     n_blocks = n_pad // block
 
     def block_fn(xs):
@@ -282,7 +231,6 @@ def _gff_active_round(
     *,
     cap: int,
     max_colors: int,
-    backend: str,
 ):
     """One frontier-sized speculative round.
 
@@ -302,26 +250,12 @@ def _gff_active_round(
 
     rows = take_rows(ell, ids, valid)
     nc = neighbor_colors(rows, colors)
-    from mcmc_colorer_tpu.ops.pallas_firstfit import pallas_palette_ok
-
     # a vertex's first-fit color is <= its degree <= the gathered row
-    # width, so the palette truncates to d_out+1 — keeps the kernel's
-    # [block, palette] VMEM temporaries bounded on skewed graphs
+    # width, so the palette truncates to d_out+1 — keeps the
+    # [cap, palette] occupancy bounded on skewed graphs
     pal = min(max_colors, rows.shape[1] + 1)
-    # palette gate: maxDeg+1 colors can exceed the kernel's ~3k VMEM bound
-    # on exactly the skewed graphs the frontier mode targets (ADVICE r1)
-    if backend == "pallas" and pallas_palette_ok(pal):
-        from mcmc_colorer_tpu.ops.pallas_firstfit import pallas_first_fit
-
-        first_free = pallas_first_fit(
-            nc,
-            jnp.ones((pal,), jnp.int32),
-            n_colors=pal,
-            block=min(cap, 128),
-        )
-    else:
-        occ = occupancy_matrix(nc, pal)
-        first_free = jnp.argmax(~occ, axis=1).astype(jnp.int32)
+    occ = occupancy_matrix(nc, pal)
+    first_free = jnp.argmax(~occ, axis=1).astype(jnp.int32)
     tentative = jnp.where(valid, first_free, jnp.int32(max_colors))
     colors_t = colors.at[ids].set(tentative, mode="drop")
     nc_new = neighbor_colors(rows, colors_t)
@@ -347,7 +281,6 @@ def _gff_segment(
     *,
     max_colors: int,
     block: int,
-    backend: str = "xla",
 ):
     """At most ``budget`` speculative rounds (traced budget — see
     utils/segmented.py).  Bit-equal to the monolithic loop."""
@@ -360,7 +293,7 @@ def _gff_segment(
 
     def body(carry):
         colors, rounds, _done = carry
-        tentative = _first_fit_pass(ell, colors, max_colors, block, backend)
+        tentative = _first_fit_pass(ell, colors, max_colors, block)
         losers = _conflict_losers(ell, tentative)
         colors = jnp.where(losers, jnp.int32(-1), tentative)
         return colors, rounds + 1, ~jnp.any((colors < 0) & real)
@@ -368,16 +301,13 @@ def _gff_segment(
     return jax.lax.while_loop(cond, body, carry)
 
 
-def _run_gff(
-    ell: EllGraph, *, max_colors: int, block: int, backend: str = "xla"
-):
-    """One-shot loop (CPU/tests; hardware drives `_gff_segment`)."""
+def _run_gff(ell: EllGraph, *, max_colors: int, block: int):
+    """One-shot loop (tests; the colorer drives `_gff_segment` from the host)."""
     carry = _gff_segment(
         ell,
         _gff_init(ell),
         jnp.int32(2**30),
         max_colors=max_colors,
         block=block,
-        backend=backend,
     )
     return carry[0], carry[1]

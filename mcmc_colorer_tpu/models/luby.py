@@ -5,7 +5,7 @@ Re-design of the reference's ``ColoringLuby`` (coloringLuby.cu) /
 per color.  The reference's fast variant drives its kernels from a parent
 CUDA kernel via dynamic parallelism to avoid host round-trips
 (coloringLubyFast.cu:51-107); here the entire nested loop lives in one
-`jax.jit` as two nested `lax.while_loop`s — the exact TPU analogue
+`jax.jit` as two nested `lax.while_loop`s — the device-side analogue
 (SURVEY §2.3 item 4).
 
 Conflict resolution among coin-flip-selected candidates is the
@@ -36,7 +36,7 @@ class LubyColorer:
         graph: Graph,
         active: bool = False,
         min_bucket: int = 128,
-        bucket_factor: int | None = None,
+        bucket_factor: int = 4,
         layout: str = "flat",
         backend: str = "auto",
         resident_spec: tuple | None = None,
@@ -55,18 +55,17 @@ class LubyColorer:
         rule is degree-based, so the relabeling does not change the
         distribution of produced colorings.  Composes with ``active=True``
         (frontier rows gathered per slice, ops/neighbor.py:take_rows)."""
-        """``backend``: 'xla' (per-edge neighbor gathers), 'matmul' (dense
-        int8 adjacency on the MXU — ~an order of magnitude faster rounds
-        on gather-bound graphs, needs n_pad² bytes of HBM; flat layout,
-        full loop only), or 'auto' (matmul on TPU when the dense adjacency
-        fits and the graph is gather-bound, else xla)."""
+        """``backend``: 'xla' (per-edge neighbor gathers; also what 'auto'
+        selects) or 'matmul' (neighbor color counts as one contraction of
+        the adjacency, dense where it fits the device, else bit-packed;
+        flat layout, full loop only)."""
         import numpy as _np
 
         self.active = active
         self.layout = layout
         if resident_spec is not None:
             # hash-defined G(n, p): the device materialises the packed
-            # adjacency itself (ops/hashgen.py) and the MXU loop is
+            # adjacency itself (ops/hashgen.py) and the matmul loop is
             # fully NC-native (it reads ell only for shapes/masks), so
             # the ELL rectangle never ships.  Full flat matmul loop only.
             if graph is not None:
@@ -88,10 +87,7 @@ class LubyColorer:
                 _StatsShim,
                 _round_up,
             )
-            from mcmc_colorer_tpu.ops.dense_adj import (
-                PACKED_ADJ_MAX_N,
-                packed_adj_bytes,
-            )
+            from mcmc_colorer_tpu.ops.dense_adj import require_packed_fits
             from mcmc_colorer_tpu.ops.hashgen import (
                 degrees_from_packed,
                 er_packed_on_device_cached,
@@ -100,18 +96,7 @@ class LubyColorer:
             rn, rp, rseed = resident_spec
             self.backend = "matmul"
             n_pad = _round_up(rn, 2048)
-            if n_pad > PACKED_ADJ_MAX_N:
-                # same clean refusal as ResidentMCMCColorer: past the
-                # packed-A HBM cap the O(n²/8)-byte device allocation
-                # would die mid-build instead of erroring up front
-                raise ValueError(
-                    f"resident graphs are bound to the packed-adjacency "
-                    f"HBM cap: n_pad={n_pad} > {PACKED_ADJ_MAX_N} "
-                    f"({packed_adj_bytes(n_pad) / 1e9:.1f} GB of A "
-                    f"bits). Larger graphs take the host/gather or "
-                    f"sharded-strip paths (models/luby.py classic, "
-                    f"parallel/sharded.py)."
-                )
+            require_packed_fits(n_pad)
             self._adj = er_packed_on_device_cached(rn, rp, rseed, n_pad)
             degrees_dev = degrees_from_packed(self._adj)
             host_degrees = np.asarray(degrees_dev)[:rn]
@@ -146,24 +131,11 @@ class LubyColorer:
             self._jit_init = jax.jit(_luby_init)
             self._jit_rounds = {}
             self._min_bucket = min_bucket
-            self._bucket_factor = bucket_factor or 4
+            self._bucket_factor = bucket_factor
             return
         self.graph = graph
         if backend == "auto":
-            from mcmc_colorer_tpu.ops.dense_adj import dense_adj_ok
-
-            backend = (
-                "matmul"
-                if (
-                    jax.default_backend() not in ("cpu", "gpu")
-                    and layout == "flat"
-                    and not active
-                    and dense_adj_ok(
-                        (graph.n + 127) // 128 * 128, graph.mean_degree
-                    )
-                )
-                else "xla"
-            )
+            backend = "xla"
         if backend == "matmul" and (layout != "flat" or active):
             raise ValueError(
                 "backend='matmul' serves the flat full loop only"
@@ -183,9 +155,8 @@ class LubyColorer:
                 from functools import partial
 
                 from mcmc_colorer_tpu.ops.dense_adj import (
-                    DENSE_ADJ_MAX_N,
-                    PACKED_NC_IMPL,
                     get_adjacency,
+                    matmul_adjacency_kind,
                 )
 
                 uniq = _np.unique(_np.asarray(graph.degrees))
@@ -193,16 +164,8 @@ class LubyColorer:
                     uniq, _np.asarray(self.ell.degrees)
                 ).astype(_np.int32)
                 self._rank_class = jnp.asarray(rank)
-                # same layout preference as the MCMC backend: packed on
-                # TPU (Mosaic bit-matmul, 8x less HBM), cached per graph
-                prefer_packed = PACKED_NC_IMPL == "pallas" and (
-                    jax.default_backend() not in ("cpu", "gpu")
-                )
-                kind = (
-                    "packed"
-                    if prefer_packed or self.ell.n_pad > DENSE_ADJ_MAX_N
-                    else "dense"
-                )
+                # same layout rule as the MCMC backend, cached per graph
+                kind = matmul_adjacency_kind(self.ell.n_pad)
                 self._adj = get_adjacency(
                     graph, self.ell.n_pad, kind, self.ell
                 )
@@ -223,10 +186,6 @@ class LubyColorer:
         self._jit_init = jax.jit(_luby_init)
         self._jit_rounds: dict[int, object] = {}
         self._min_bucket = min_bucket
-        if bucket_factor is None:
-            # coarse ladder on the remote-compile TPU path (one kernel per
-            # rung; see models/mcmc_active.py), finer elsewhere
-            bucket_factor = 16 if self.backend == "pallas" else 4
         self._bucket_factor = bucket_factor
 
     def host_graph(self):
@@ -281,7 +240,7 @@ class LubyColorer:
             colors, n_colors = self._run_active(key)
         else:
             # host-segmented device loop (utils/segmented.py): bit-equal
-            # to one execution, immune to the ~60 s execution wall
+            # to one execution
             carry = drive_segments(
                 lambda c, b: self._jit_segment(self.ell, c, jnp.int32(b)),
                 self._jit_init(self.ell, key),
@@ -432,7 +391,7 @@ def _luby_segment_matmul(
     *,
     n_classes: int,
 ):
-    """`_luby_segment` with both neighbor inspections on the MXU instead
+    """`_luby_segment` with both neighbor inspections as contractions instead
     of per-edge gathers (the round-2 dense-adjacency formulation,
     ops/dense_adj.py).  Per round: (1) ``M = A @ onehot(rank_class |
     selected)`` counts each vertex's selected neighbors per degree class;
@@ -458,7 +417,7 @@ def _luby_segment_matmul(
         cls = jnp.where(sel, rank_class, jnp.int32(-1))
         # both contractions through neighbor_color_counts: dispatches on
         # the adjacency dtype, so the dense int8 AND the bit-packed
-        # Mosaic layouts both work (round 3 — Luby rides the same cached
+        # layouts both work (round 3 — Luby rides the same cached
         # packed A as the MCMC backend)
         from mcmc_colorer_tpu.ops.dense_adj import neighbor_color_counts
 

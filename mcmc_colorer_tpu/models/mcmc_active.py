@@ -1,12 +1,12 @@
 """Active-set MCMC balanced colorer — time-to-solution optimized.
 
-The chain's per-iteration cost is dominated by the neighbor-color gather
-(~133M elements/s on TPU — PERF.md).  But with the reference's ε = 1e-8,
+The chain's per-iteration cost is dominated by the neighbor-color gather.
+But with the reference's ε = 1e-8,
 non-violating vertices keep their color with probability
 1−(nCol−1)ε ≈ 1: only *violating* vertices meaningfully resample, and the
 violating set decays geometrically.  This colorer exploits that exactly:
 
-* the kernel resamples only the active set (violating ∧ taboo-free),
+* the sweep resamples only the active set (violating ∧ taboo-free),
   gathering |A|·d neighbor colors instead of n·d;
 * non-violating vertices' dynamics are applied analytically: taboo
   counters decrement/reset vectorized, and the rare ε-flip (a
@@ -20,7 +20,7 @@ violating set decays geometrically.  This colorer exploits that exactly:
 The loop is host-driven (like `SteppedMCMC`) with the active capacity
 bucketed in powers of two: each bucket compiles once; iterations then
 dispatch at the size of the actual conflict frontier.  Large frontiers
-(> n/4) fall back to the fused full-sweep kernel.
+(> n/8) run as full sweeps.
 
 Distributionally equivalent to `MCMCColorer` (same proposal formulas,
 same synchronous update) up to the ε-flip approximation above.
@@ -44,7 +44,6 @@ from mcmc_colorer_tpu.models.mcmc import (
     _needs_histogram,
     _slice_vec,
     _sweep_any,
-    _sweep_pallas_fused_any,
     _variant_distribution,
     choose_block_size,
 )
@@ -57,10 +56,7 @@ from mcmc_colorer_tpu.utils import rng as rngu
 
 
 def _buckets(n_pad: int, min_bucket: int = 128, factor: int = 4) -> list[int]:
-    """Frontier-capacity ladder.  Caps are rounded to multiples of 128 —
-    the Pallas kernels' vector-tile granularity (pallas_sweep /
-    pallas_first_fit assert cap % block == 0 with block % 128 == 0) —
-    so any user-supplied ``min_bucket`` is safe on the pallas backend."""
+    """Frontier-capacity ladder; caps are multiples of 128."""
     out = []
     b = max(128, ((min_bucket + 127) // 128) * 128)
     factor = max(2, factor)
@@ -81,19 +77,12 @@ class ActiveMCMCColorer:
         self,
         graph: Graph,
         params: MCMCParams,
-        backend: str = "auto",
         min_bucket: int = 128,
-        bucket_factor: int | None = None,
+        bucket_factor: int = 4,
         layout: str = "flat",
     ) -> None:
         """``min_bucket``/``bucket_factor`` control the active-capacity
-        ladder; each bucket compiles its own kernel, so on the
-        remote-compile TPU path (4-6 min per Pallas program) the default
-        ladder is COARSE (factor 16 → at most ~3 rungs at n=1M: cold
-        start bounded at a few compiles) while CPU/GPU keep the finer
-        factor-4 ladder (compiles are cheap there, tighter caps gather
-        less).  Pass ``bucket_factor`` to override either way; see also
-        utils/compcache.enable() for cross-process compile reuse.
+        ladder; each rung compiles its own program.
 
         ``layout='bucketed'``: degree-bucketed rectangles (see
         models/mcmc.py MCMCColorer) — full-mode sweeps gather
@@ -118,57 +107,31 @@ class ActiveMCMCColorer:
         self.graph = graph
         self.params = params
         self.block = choose_block_size(graph.n, params.n_colors)
-        if backend == "auto":
-            backend = (
-                "pallas"
-                if jax.default_backend() not in ("cpu", "gpu")
-                else "xla"
-            )
-        self.backend = backend
         self.layout = layout
-        from mcmc_colorer_tpu.graph.container import degree_pad_for
-
         if layout == "bucketed":
             self.block = min(self.block, 2048)
             g2, perm = graph.degree_relabel()
             self._perm = perm
-            self.ell = g2.to_ell_bucketed(
-                block=128,
-                min_lane=128 if backend == "pallas" else 8,
-            )
+            self.ell = g2.to_ell_bucketed(block=128)
             self._pos = self.ell.real_positions()
         elif layout == "flat":
             self._perm = None
-            self.ell = graph.to_ell(
-                pad_nodes_to=max(self.block, 128),
-                pad_degree_to=degree_pad_for(graph, backend),
-            )
+            self.ell = graph.to_ell(pad_nodes_to=max(self.block, 128))
         else:
             raise ValueError(f"unknown layout {layout!r}")
         self._jit_cnt = jax.jit(partial(_cnt_of, params=params))
         self._jit_full = jax.jit(
-            partial(
-                _full_iteration,
-                params=params,
-                block=self.block,
-                backend=backend,
-            )
+            partial(_full_iteration, params=params, block=self.block)
         )
         self._jit_active = {}
         self._jit_tailcut = {}
         self._min_bucket = min_bucket
-        if bucket_factor is None:
-            bucket_factor = 16 if backend == "pallas" else 4
         self._bucket_factor = bucket_factor
 
     def _active_fn(self, cap: int):
         if cap not in self._jit_active:
             self._jit_active[cap] = jax.jit(
-                partial(
-                    _active_iteration,
-                    params=self.params,
-                    backend=self.backend,
-                ),
+                partial(_active_iteration, params=self.params),
                 static_argnames=("cap",),
             )
         return self._jit_active[cap]
@@ -218,8 +181,7 @@ class ActiveMCMCColorer:
         colors = _init_colors(ell, params, k_init)
         taboo = jnp.zeros((ell.n_pad,), jnp.int32)
         cnt = None  # maintained only in active mode (computing it costs a
-        # full gather; full-mode iterations get conflicts from the fused
-        # kernel instead)
+        # full gather; full-mode iterations count conflicts per sweep)
         z = params.tailcut_threshold(g.n)
         caps = _buckets(ell.n_pad, self._min_bucket, self._bucket_factor)
         switch_at = ell.n_pad // 8  # conflict-edge threshold for active mode
@@ -229,8 +191,8 @@ class ActiveMCMCColorer:
         while rip < params.max_iterations:
             key, k_it = jax.random.split(key)
             if cnt is None:
-                # full mode: fused sweep measures conflicts of the CURRENT
-                # coloring in-kernel; the proposal is discarded when
+                # full mode: the sweep also measures conflicts of the
+                # CURRENT coloring; the proposal is discarded when
                 # already converged (reference do-while semantics)
                 star, new_taboo, conf_cur = self._jit_full(
                     ell, colors, taboo, k_it
@@ -355,10 +317,9 @@ def _full_iteration(
     *,
     params: MCMCParams,
     block: int,
-    backend: str,
 ):
     """One synchronous full sweep; returns (star, taboo', conflicts of the
-    CURRENT coloring) — one gather on the pallas path (fused kernel)."""
+    CURRENT coloring)."""
     key, k_u = jax.random.split(key)
     unif = jax.random.uniform(k_u, (ell.n_pad,), dtype=jnp.float32)
     hist = (
@@ -367,15 +328,10 @@ def _full_iteration(
         else None
     )
     p_eff = _variant_distribution(params, hist, ell.n_nodes)
-    if backend == "pallas":
-        star, new_taboo, _, conf = _sweep_pallas_fused_any(
-            ell, params, block, colors, taboo, unif, p_eff
-        )
-    else:
-        star, new_taboo, _ = _sweep_any(
-            ell, params, block, colors, taboo, unif, p_eff
-        )
-        conf = _conflict_edges_any(ell, colors)
+    star, new_taboo, _ = _sweep_any(
+        ell, params, block, colors, taboo, unif, p_eff
+    )
+    conf = _conflict_edges_any(ell, colors)
     return star, new_taboo, conf
 
 
@@ -388,7 +344,6 @@ def _active_iteration(
     *,
     cap: int,
     params: MCMCParams,
-    backend: str,
     adj_packed=None,
     d_row: int | None = None,
 ):
@@ -421,32 +376,13 @@ def _active_iteration(
     p_eff = _variant_distribution(params, hist, ell.n_nodes)
     unif = jax.random.uniform(k_u, (cap,), dtype=jnp.float32)
 
-    if backend == "pallas":
-        from mcmc_colorer_tpu.ops.pallas_resample import pallas_sweep
+    from mcmc_colorer_tpu.models.mcmc import _proposal_q, _sample_cdf
+    from mcmc_colorer_tpu.ops.neighbor import occupancy_matrix
 
-        p_eff_arr = (
-            p_eff if p_eff is not None else jnp.zeros((n_colors,), jnp.float32)
-        )
-        chosen, _q, new_taboo_a, _c = pallas_sweep(
-            nc,
-            rows,
-            cur,
-            jnp.zeros((cap,), jnp.int32),
-            unif,
-            p_eff_arr,
-            jnp.float32(params.epsilon),
-            params=params,
-            block=min(cap, 128),
-            self_ids=active_ids,
-        )
-    else:
-        from mcmc_colorer_tpu.models.mcmc import _proposal_q, _sample_cdf
-        from mcmc_colorer_tpu.ops.neighbor import occupancy_matrix
-
-        occ = occupancy_matrix(nc, n_colors)
-        q = _proposal_q(cur, occ, params, p_eff)
-        chosen = _sample_cdf(q, unif)
-        new_taboo_a = jnp.where(chosen == cur, t_iter, 0)
+    occ = occupancy_matrix(nc, n_colors)
+    q = _proposal_q(cur, occ, params, p_eff)
+    chosen = _sample_cdf(q, unif)
+    new_taboo_a = jnp.where(chosen == cur, t_iter, 0)
     chosen = jnp.where(valid, chosen, cur)
 
     # ---- passive dynamics ------------------------------------------------
@@ -466,7 +402,7 @@ def _active_iteration(
     )
     fv_new = jax.lax.rem(fv_old + offs, jnp.int32(n_colors))
 
-    # taboo: active → kernel result; taboo>0 → decrement; passive keepers
+    # taboo: active → sweep result; taboo>0 → decrement; passive keepers
     # (taboo==0, not flipped) → reset to T (they drew 'keep')
     taboo_next = jnp.where(
         taboo > 0,

@@ -25,7 +25,7 @@ The per-iteration free-color stats (Zvcomp min/max/avg, the reference's
 TRACE lines at :203-207 and coloringMCMC_prints.cu:117-131) are recorded
 in ``extra['free_color_trace']`` and printed by the CLI TRACE path.
 
-This model is the statistical golden reference for the TPU chain and the
+This model is the statistical golden reference for the device chain and the
 ``--mcmccpu`` CLI algorithm.  It is intentionally plain numpy: clarity over
 speed.
 """

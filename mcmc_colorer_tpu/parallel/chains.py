@@ -49,7 +49,7 @@ class EnsembleMCMCColorer:
     ) -> None:
         """``layout='bucketed'``: every chain runs over degree-bucketed
         rectangles (graph/container.py:BucketedEll) — required on skewed
-        graphs whose flat max-degree rectangle exceeds HBM."""
+        graphs whose flat max-degree rectangle exceeds device memory."""
         self.graph = graph
         self.params = params
         self.n_chains = n_chains
@@ -58,29 +58,19 @@ class EnsembleMCMCColorer:
             graph.n, params.n_colors * max(1, n_chains // 8)
         )
         if backend == "auto":
-            backend = (
-                "pallas"
-                if jax.default_backend() not in ("cpu", "gpu")
-                else "xla"
-            )
-        from mcmc_colorer_tpu.graph.container import degree_pad_for
-
+            backend = "xla"
+        if backend not in ("xla", "matmul"):
+            raise ValueError(f"unknown backend {backend!r}")
         self.layout = layout
         if layout == "bucketed":
             self.block = min(self.block, 2048)
             g2, perm = graph.degree_relabel()
             self._perm = perm
-            self.ell = g2.to_ell_bucketed(
-                block=128,
-                min_lane=128 if backend == "pallas" else 8,
-            )
+            self.ell = g2.to_ell_bucketed(block=128)
             self._pos = self.ell.real_positions()
         elif layout == "flat":
             self._perm = None
-            self.ell = graph.to_ell(
-                pad_nodes_to=self.block,
-                pad_degree_to=degree_pad_for(graph, backend),
-            )
+            self.ell = graph.to_ell(pad_nodes_to=self.block)
         else:
             raise ValueError(f"unknown layout {layout!r}")
 
@@ -88,7 +78,6 @@ class EnsembleMCMCColorer:
             _chain_final_conflicts,
             _chain_init,
             _chain_segment,
-            _chain_segment_fused,
             _chain_segment_matmul,
             _tailcut_finish,
             _tailcut_init,
@@ -96,38 +85,19 @@ class EnsembleMCMCColorer:
         )
 
         # every chain's device loop is compiled once with a traced budget
-        # and host-driven in segments (utils/segmented.py: single
-        # executions past ~60 s crash the TPU worker); the vmapped
+        # and host-driven in segments (utils/segmented.py); the vmapped
         # while_loops lock-step the batch exactly like the former one-shot
         self._adj = None
-        self._fused_carry = backend in ("pallas", "matmul") and (
-            not params.hastings
-        )
         if backend == "matmul":
             from mcmc_colorer_tpu.ops.dense_adj import (
-                DENSE_ADJ_MAX_N,
-                PACKED_NC_IMPL,
                 get_adjacency,
-                packed_adj_bytes,
+                matmul_adjacency_kind,
             )
 
             if layout != "flat":
                 raise ValueError("backend='matmul' is flat-layout only")
-            # same kind selection as MCMCColorer: packed layout where
-            # the Mosaic bit-matmul is available, dense below its cap
-            # otherwise (advisor r2 HBM-headroom finding)
-            prefer_packed = PACKED_NC_IMPL == "pallas" and (
-                jax.default_backend() not in ("cpu", "gpu")
-            )
-            if not prefer_packed and self.ell.n_pad <= DENSE_ADJ_MAX_N:
-                kind = "dense"
-            elif packed_adj_bytes(self.ell.n_pad) <= 12 * 1024**3:
-                kind = "packed"
-            else:
-                raise ValueError(
-                    "even the bit-packed adjacency exceeds HBM at "
-                    f"n_pad={self.ell.n_pad}; use backend='pallas'"
-                )
+            # same kind selection as MCMCColorer
+            kind = matmul_adjacency_kind(self.ell.n_pad)
             # ONE A serves every chain (the per-chain sweep matmuls
             # batch over it); cached per (graph, n_pad, kind)
             self._adj = get_adjacency(graph, self.ell.n_pad, kind, self.ell)
@@ -142,23 +112,10 @@ class EnsembleMCMCColorer:
             self._jit_segment = lambda ell, c, b: self._jit_segment_m(
                 ell, self._adj, c, b
             )
-        elif backend == "pallas" and not params.hastings:
-            seg = jax.vmap(
-                partial(
-                    _chain_segment_fused, params=params, block=self.block
-                ),
-                in_axes=(None, 0, None),
-            )
-            self._jit_segment = jax.jit(seg)
         else:
             self._fused_carry = False
             seg = jax.vmap(
-                partial(
-                    _chain_segment,
-                    params=params,
-                    block=self.block,
-                    backend=backend,
-                ),
+                partial(_chain_segment, params=params, block=self.block),
                 in_axes=(None, 0, None),
             )
             self._jit_segment = jax.jit(seg)

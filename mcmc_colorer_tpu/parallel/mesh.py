@@ -1,7 +1,7 @@
 """Device-mesh and multi-host plumbing.
 
 The reference is single-process/single-GPU with no communication backend
-(SURVEY §2.3 item 7).  The TPU framework scales along two axes instead:
+(SURVEY §2.3 item 7).  This framework scales along two axes instead:
 
 * ``chains`` — independent MCMC chains (embarrassingly parallel; pooled
   statistics via ``psum``-style cross-chain reductions),

@@ -156,9 +156,9 @@ class ShardedMCMCColorer:
             # them to id lists on device (packed_rows_to_ids); no
             # stored neighbor lists needed
             rn, rp, rseed = resident_spec
-            # HBM precheck FIRST: past the per-shard strip cap even the
-            # degree sweep is an over-wall device program — refuse with
-            # the clean error before touching the device (review r4)
+            # memory precheck FIRST: past the per-shard strip cap even
+            # the degree sweep is a long device program — refuse with the
+            # clean error before touching the device (review r4)
             from mcmc_colorer_tpu.ops.dense_adj import packed_adj_words
 
             ms_pre = mesh.shape["shards"]
@@ -193,7 +193,7 @@ class ShardedMCMCColorer:
             strip_bytes = n_loc_pre * packed_adj_words(
                 ms_pre * n_loc_pre
             ) * 4
-            if strip_bytes > 12 * 1024**3:
+            if not _strip_fits(strip_bytes, mesh):
                 raise ValueError(
                     f"packed adjacency strip needs "
                     f"{strip_bytes/1e9:.1f} GB per shard at "
@@ -214,13 +214,9 @@ class ShardedMCMCColorer:
                     n_colors=default_n_colors(maxdeg, num_col_ratio)
                 )
         if backend == "auto":
-            backend = (
-                "pallas"
-                if jax.default_backend() not in ("cpu", "gpu")
-                else "xla"
-            )
+            backend = "xla"
         self.backend = backend
-        if backend not in ("pallas", "xla", "matmul"):
+        if backend not in ("xla", "matmul"):
             raise ValueError(f"unknown sharded backend {backend!r}")
         self.graph = graph
         self.params = params
@@ -244,7 +240,6 @@ class ShardedMCMCColorer:
             per_shard,
         )
         n_loc = ((per_shard + self.block - 1) // self.block) * self.block
-        from mcmc_colorer_tpu.graph.container import degree_pad_for
 
         if self._resident:
             # the shim ELL only carries shapes + the log-contract stats:
@@ -255,7 +250,7 @@ class ShardedMCMCColorer:
             from mcmc_colorer_tpu.ops.dense_adj import packed_adj_words
 
             strip_bytes = n_loc * packed_adj_words(self._n_pad) * 4
-            if strip_bytes > 12 * 1024**3:
+            if not _strip_fits(strip_bytes, mesh):
                 raise ValueError(
                     f"packed adjacency strip needs {strip_bytes/1e9:.1f}"
                     f" GB per shard at n_pad={self._n_pad} over {ms} "
@@ -290,10 +285,7 @@ class ShardedMCMCColorer:
             self.resident_spec = resident_spec
             n_loc_final = n_loc
         else:
-            self.ell = graph.to_ell(
-                pad_nodes_to=ms * n_loc,
-                pad_degree_to=degree_pad_for(graph, backend),
-            )
+            self.ell = graph.to_ell(pad_nodes_to=ms * n_loc)
             self._n_pad = self.ell.n_pad
             n_loc_final = self._n_pad // ms
             self._adj_strip = None
@@ -301,17 +293,17 @@ class ShardedMCMCColorer:
             # adjacency-strip formulation (VERDICT r2 item 1b): each
             # shard holds its [n_loc, n_pad] rows of the bit-packed
             # adjacency (n_pad^2/8/S bytes) and computes its NC rows as
-            # one MXU contraction per sweep instead of the per-shard
-            # neighbor-color gather — the only road to MXU-rate sweeps
-            # beyond the single-chip packed cap (ER(1M) on >=16 shards)
+            # one contraction per sweep instead of the per-shard
+            # neighbor-color gather — the contraction beyond the
+            # single-card packed cap
             from mcmc_colorer_tpu.ops.dense_adj import packed_adj_words
 
             strip_bytes = n_loc_final * packed_adj_words(self._n_pad) * 4
-            if strip_bytes > 12 * 1024**3:
+            if not _strip_fits(strip_bytes, mesh):
                 raise ValueError(
                     f"packed adjacency strip needs {strip_bytes/1e9:.1f} "
                     f"GB per shard at n_pad={self._n_pad} over {ms} "
-                    "shards; add shards or use backend='pallas'"
+                    "shards; add shards or use backend='xla'"
                 )
             # strips are cached per (graph, n_pad, mesh devices) like the
             # single-chip adjacency (ops/dense_adj.py:get_adjacency):
@@ -525,8 +517,7 @@ class ShardedMCMCColorer:
                 if checkpoint_path:
                     self.save_checkpoint(state, checkpoint_path)
         else:
-            # adaptive segments: a single execution of max_iterations
-            # sweeps can cross the ~60 s wall (utils/segmented.py)
+            # adaptive segments (utils/segmented.py)
             from mcmc_colorer_tpu.utils.segmented import drive_segments
 
             def seg_fn(st, b):
@@ -707,7 +698,7 @@ def _resident_strips(spec: tuple, n_pad: int, mesh: Mesh):
         tuple(int(d.id) for d in mesh.devices.flat),
     )
     if ck not in _RESIDENT_STRIP_CACHE:
-        # the strips are HBM-sized; keep only the most recent spec so
+        # the strips are device-memory-sized; keep only the most recent spec so
         # sweeping many graphs in one process can't accumulate them
         # (the ELL-strip cache hangs off the Graph object and dies with
         # it — a module-level cache needs explicit eviction)
@@ -725,10 +716,9 @@ def _build_packed_strips(neighbors, mesh: Mesh, target_slots=40_000_000):
 
     Built band-wise from the already-sharded ELL: every call packs the
     same local row band on every shard (scatter a dense int8 strip, fold
-    to uint32 words), driven from the host so no single execution
-    crosses the ~60 s wall (utils/segmented.py).  Nothing ships from the
-    host and nothing crosses the mesh — each shard scatters only its own
-    rows."""
+    to uint32 words), driven from the host so each execution's scratch
+    stays bounded.  Nothing ships from the host and nothing crosses the
+    mesh — each shard scatters only its own rows."""
     from mcmc_colorer_tpu.ops.dense_adj import (
         pack_ell_rows,
         packed_adj_words,
@@ -741,7 +731,7 @@ def _build_packed_strips(neighbors, mesh: Mesh, target_slots=40_000_000):
     k_total = words * 32
     # band height: multiple of 8 dividing n_loc (128 | n_loc by
     # construction), scratch z <= ~1.5 GB, flat int32 indices in range,
-    # and <= target_slots scattered slots per execution (~wall/3)
+    # and <= target_slots scattered slots per execution
     cap_rows = max(
         8,
         min(
@@ -781,26 +771,22 @@ def _build_packed_strips(neighbors, mesh: Mesh, target_slots=40_000_000):
     return a
 
 
+def _strip_fits(strip_bytes: int, mesh: Mesh) -> bool:
+    """Whether one shard's packed strip fits the mesh devices' memory."""
+    from mcmc_colorer_tpu.ops.dense_adj import adjacency_fits, device_capacity
+
+    return adjacency_fits(
+        strip_bytes, min(device_capacity(d) for d in mesh.devices.flat)
+    )
+
+
 def _strip_nc(strip_loc, cf, full_real, n_colors):
     """[n_loc, n_col_pad] neighbor color counts of the owned vertices
     from this shard's packed strip (shared by the segment's nc_of, the
-    NC init and the strip tailcut): Mosaic bit-matmul on TPU, chunked
-    XLA unpack elsewhere."""
-    from mcmc_colorer_tpu.ops.dense_adj import (
-        PACKED_NC_IMPL,
-        _packed_neighbor_color_counts,
-    )
+    NC init and the strip tailcut)."""
+    from mcmc_colorer_tpu.ops.dense_adj import neighbor_color_counts
 
-    n_col_pad = (n_colors + 127) // 128 * 128
-    masked = jnp.where(full_real, cf, jnp.int32(-1))
-    if PACKED_NC_IMPL == "pallas" and jax.default_backend() not in (
-        "cpu",
-        "gpu",
-    ):
-        from mcmc_colorer_tpu.ops.pallas_bitmatmul import packed_nc_pallas
-
-        return packed_nc_pallas(strip_loc, masked, n_col_pad)
-    return _packed_neighbor_color_counts(strip_loc, masked, n_col_pad)
+    return neighbor_color_counts(strip_loc, cf, n_colors, full_real)
 
 
 def _nc_own_count(nc, own):
@@ -890,13 +876,11 @@ def _run_sharded_segment(
 
         def nc_of(cf):
             """[n_loc, n_col_pad] neighbor color counts of the owned
-            vertices as ONE MXU contraction against this shard's packed
+            vertices as ONE contraction against this shard's packed
             adjacency strip (matmul backend; the sharded rendition of
             ops/dense_adj.py:neighbor_color_counts).  Subsumes the
             occupancy, the per-vertex same-color counts, AND the
-            Hastings reverse occupancy — no neighbor gathers at all.
-            On TPU the contraction is the hardware-validated Mosaic
-            bit-matmul (bench_packed r3: 121 ms/iter at n=100k)."""
+            Hastings reverse occupancy — no neighbor gathers at all."""
             return _strip_nc(strip_loc, cf, full_real, n_colors)
 
         def cnt_of_nc(nc, cf):
@@ -955,35 +939,6 @@ def _run_sharded_segment(
                     [cf, jnp.full((1,), -1, jnp.int32)]
                 )
                 cur_loc = jnp.take(cf, jnp.clip(self_gids, 0, n_pad - 1))
-
-                if backend == "pallas":
-                    from mcmc_colorer_tpu.ops.pallas_resample import (
-                        pallas_sweep,
-                    )
-
-                    nc_loc = jnp.take(cf_ext, neigh_loc, axis=0)
-                    p_eff_arr = (
-                        p_eff
-                        if p_eff is not None
-                        else jnp.zeros((n_colors,), jnp.float32)
-                    )
-                    star, qstar, new_tb, _c = pallas_sweep(
-                        nc_loc,
-                        neigh_loc,
-                        cur_loc,
-                        tb,
-                        u_loc,
-                        p_eff_arr,
-                        eps_eff,
-                        params=params,
-                        block=min(block, 128),
-                        self_ids=self_gids,
-                    )
-                    star = jnp.where(real_loc, star, cur_loc)
-                    new_tb = jnp.where(real_loc, new_tb, 0)
-                    qstar = jnp.where(real_loc, qstar, 1.0)
-                    logq = jnp.sum(jnp.log(jnp.maximum(qstar, 1e-30)))
-                    return star, new_tb, key, logq
 
                 if backend == "matmul":
                     # occupancy from this shard's strip contraction; the
@@ -1319,33 +1274,10 @@ def _run_sharded_segment(
                     (cap,),
                     dtype=jnp.float32,
                 )
-                if backend == "pallas":
-                    from mcmc_colorer_tpu.ops.pallas_resample import (
-                        pallas_sweep,
-                    )
-
-                    p_eff_arr = (
-                        p_eff
-                        if p_eff is not None
-                        else jnp.zeros((n_colors,), jnp.float32)
-                    )
-                    chosen, _q, new_tb_a, _c = pallas_sweep(
-                        nc,
-                        rows,
-                        cur,
-                        jnp.zeros((cap,), jnp.int32),
-                        u,
-                        p_eff_arr,
-                        eps_eff,
-                        params=params,
-                        block=min(cap, 128),
-                        self_ids=gids,
-                    )
-                else:
-                    occ = occupancy_matrix(nc, n_colors)
-                    q = _proposal_q(cur, occ, params, p_eff, eps_eff)
-                    chosen = _sample_cdf(q, u)
-                    new_tb_a = jnp.where(chosen == cur, t_iter, 0)
+                occ = occupancy_matrix(nc, n_colors)
+                q = _proposal_q(cur, occ, params, p_eff, eps_eff)
+                chosen = _sample_cdf(q, u)
+                new_tb_a = jnp.where(chosen == cur, t_iter, 0)
                 chosen = jnp.where(lvalid, chosen, cur)
 
                 # sparse ε-flip: with prob 1-(1-(nCol-1)ε)^|passive| one
@@ -1468,8 +1400,7 @@ def _run_sharded_segment(
                 )
                 return star_full, tb_next, cnt_next, key, jnp.bool_(True)
 
-            # python loop over the per-device chains (cl is small & static;
-            # avoids vmap-of-pallas_call)
+            # python loop over the per-device chains (cl is small & static)
             stars, taboos, cnts, keys_out, accs = [], [], [], [], []
             for c in range(cl):
                 if cap is None:
@@ -1897,14 +1828,6 @@ def _run_tailcut_sharded(
     n_loc = n_pad // ms
     n_colors = params.n_colors
 
-    from mcmc_colorer_tpu.ops.pallas_firstfit import pallas_palette_ok
-
-    # (the former row gate is gone — round 2 traced the "first-fit faults
-    # in big loops" symptom to the ~60 s execution wall, utils/segmented.py)
-    use_pallas = (
-        jax.default_backend() not in ("cpu", "gpu")
-        and pallas_palette_ok(n_colors)
-    )
     blk = block if n_loc % block == 0 else 128
 
     def body_fn(neigh_loc, cols_r, key, rounds0, budget):
@@ -1915,18 +1838,6 @@ def _run_tailcut_sharded(
         full_real = jnp.arange(n_pad, dtype=jnp.int32) < jnp.int32(n_nodes)
 
         def first_free(nc_r):
-            if use_pallas:
-                from mcmc_colorer_tpu.ops.pallas_firstfit import (
-                    pallas_first_fit,
-                )
-
-                return pallas_first_fit(
-                    nc_r,
-                    jnp.ones((n_colors,), jnp.int32),
-                    n_colors=n_colors,
-                    block=min(blk, 128),
-                )
-
             def block_fn(xs):
                 (nc_blk,) = xs
                 occ = occupancy_matrix(nc_blk, n_colors)

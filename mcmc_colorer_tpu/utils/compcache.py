@@ -1,46 +1,34 @@
-"""Persistent XLA compilation cache (cold-start mitigation).
+"""Persistent XLA compilation cache.
 
-The frontier ladder and the chunked-palette kernels compile one program
-per (cap, palette window) shape, and on this image every Pallas compile is
-REMOTE (4-6 min, PERF.md).  JAX's persistent compilation cache stores the
-compiled executable keyed by HLO + flags, so a second process re-running
-the same ladder pays none of it.
+JAX stores compiled executables keyed by HLO and flags, so a second
+process that runs the same programs skips their compilation.  Where
+``JAX_COMPILATION_CACHE_DIR`` is set, JAX reads it itself and this module
+sets nothing.  Otherwise the cache lives at one fixed path inside the
+checkout, ``.jax_cache/`` (git-ignored): a cache directory that moves
+between runs never hits.
 
-Usage: call ``enable()`` once before the first jit (the CLI does when
-MCMC_COLORER_COMPILE_CACHE is set, or pass a path).  Safe to call on any
-backend; failures degrade to no caching.
+The CLI, ``bench.py`` and ``chip_smoke.py`` call ``enable()`` before
+their first compile.
 """
 
 from __future__ import annotations
 
 import os
 
-_DEFAULT_DIR = os.path.expanduser("~/.cache/mcmc_colorer_tpu/xla")
+DEFAULT_DIR = os.path.join(
+    os.path.dirname(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    ),
+    ".jax_cache",
+)
 
 
-def enable(path: str | None = None) -> str | None:
-    """Turn on the persistent compilation cache; returns the cache dir
-    actually used, or None when unavailable."""
+def enable() -> str:
+    """Turn on the persistent compilation cache; returns its directory."""
+    env_dir = os.environ.get("JAX_COMPILATION_CACHE_DIR")
+    if env_dir:
+        return env_dir
     import jax
 
-    if path is None:
-        path = os.environ.get("MCMC_COLORER_COMPILE_CACHE", _DEFAULT_DIR)
-        # the env var doubles as the on/off gate (documented usage is
-        # MCMC_COLORER_COMPILE_CACHE=1): truthy boolean-ish values mean
-        # "use the default dir", falsy ones disable the cache entirely,
-        # anything else is an explicit path
-        v = path.strip().lower()
-        if v in ("", "1", "true", "yes", "on"):
-            path = _DEFAULT_DIR
-        elif v in ("0", "false", "no", "off"):
-            return None
-    try:
-        os.makedirs(path, exist_ok=True)
-        jax.config.update("jax_compilation_cache_dir", path)
-        # cache everything, including fast compiles (the remote round-trip
-        # dominates even "fast" ones here)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 0)
-        jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-        return path
-    except Exception:  # noqa: BLE001 — cache is best-effort
-        return None
+    jax.config.update("jax_compilation_cache_dir", DEFAULT_DIR)
+    return DEFAULT_DIR

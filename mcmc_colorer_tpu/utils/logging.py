@@ -35,7 +35,7 @@ def format_run_stats(
     hist = coloring.histogram
     stats = coloring.class_stats()
     lines = [
-        f"MCMC Colorer - TPU framework - {algo} - Report",
+        f"MCMC Colorer - JAX framework - {algo} - Report",
         "-------------------------------------------",
         "GRAPH INFO",
         f"Nodes: {g.n} - Edges: {g.n_edges}",

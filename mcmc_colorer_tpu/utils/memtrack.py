@@ -2,7 +2,7 @@
 
 The reference keeps static byte counters per subsystem (graph, colorer,
 misc) — call sites mostly commented out.  Here the live numbers come from
-the runtime: per-device HBM stats plus a helper to size this framework's
+the runtime: per-device memory stats plus a helper to size this framework's
 own structures analytically.
 """
 
@@ -41,7 +41,7 @@ def estimate_run_bytes(
     ell = n_nodes * max_degree * ints          # neighbor matrix
     nc = n_nodes * max_degree * ints           # gathered neighbor colors
     vectors = 5 * n_nodes * ints               # colors/star/taboo/unif/flags
-    block_occ = block * n_colors * 5 * ints    # kernel working set (VMEM)
+    block_occ = block * n_colors * 5 * ints    # per-block working set
     total = (ell + nc + vectors) * n_chains + block_occ
     return {
         "ell_bytes": ell,

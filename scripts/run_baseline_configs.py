@@ -3,7 +3,7 @@
 1. ER n=1000 p=0.1 — sequential MCMC (reference-semantics run)
 2. Luby colorer on ER n=100k p=0.01
 3. MCMC balanced coloring, large ER, numColRatio sweep + balance index
-   (n scales down automatically if HBM is insufficient)
+   (n scales down automatically if device memory is insufficient)
 4. real-world-like graph (Barabási–Albert) via the converter pipeline
 5. 64-chain ensemble with best-of-chains selection
 
@@ -13,13 +13,14 @@ Usage: python scripts/run_baseline_configs.py [--out report.json] [--small]
 
 import argparse
 import json
+import os
 import sys
 import tempfile
 import time
 
 import numpy as np
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
 
@@ -52,10 +53,10 @@ def timed_split(colorer, seed):
 
 def timed_segments(make_colorer, seed):
     """One-run phase split for loop colorers too expensive to run twice
-    (config2's full Luby loop is ~18 min at ER(100k) on the chip):
+    (config2's full Luby loop is long at ER(100k)):
     construction is seconds_setup; per-segment wall times are captured
     through drive_segments' on_segment hook, and the FIRST segment's
-    excess over the median steady segment estimates the one-time remote
+    excess over the median steady segment estimates the one-time
     compile (the hashgen band-attribution pattern, round 5) — so every
     report row carries the same setup/compile/steady decomposition
     without doubling an 18-minute run (VERDICT r4 item 6)."""
@@ -174,7 +175,7 @@ def main():
                 del colorer3
                 print(f"config3 ratio={ratio}:", sweep[str(ratio)], flush=True)
             break
-        except Exception as e:  # HBM OOM → halve
+        except Exception as e:  # device OOM → halve
             import gc
             import traceback
 

@@ -19,11 +19,12 @@ Runs on whatever the default JAX backend is (CPU fine).
 
 import argparse
 import json
+import os
 import sys
 
 import numpy as np
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from mcmc_colorer_tpu.config import InitKind, MCMCParams, ProposalKind
 from mcmc_colorer_tpu.graph.generate import erdos_renyi

@@ -40,7 +40,7 @@ def test_cli_simulate_all_algos(tmp_path):
     assert rc == 0
     logs = sorted(os.listdir(out))
     tags = {f.split("-")[-2] for f in logs if f.endswith(".log")}
-    assert tags == {"MCMC_TPU", "MCMC_CPU", "LUBY", "GFF", "VFF"}
+    assert tags == {"MCMC_GPU", "MCMC_CPU", "LUBY", "GFF", "VFF"}
     # colors files exist and carry one line per node
     cf = [f for f in logs if f.endswith("-colors.txt")][0]
     lines = (out / cf).read_text().strip().split("\n")
@@ -122,13 +122,13 @@ def test_log_roundtrip_and_analysis(tmp_path):
         ]
     )
     results = parse_results_dir(str(out))
-    assert set(results) == {"MCMC_TPU", "LUBY"}
-    rec = results["MCMC_TPU"][0]
+    assert set(results) == {"MCMC_GPU", "LUBY"}
+    rec = results["MCMC_GPU"][0]
     assert rec["nodes"] == 100
     assert rec["n_colors"] > 0
     assert sum(rec["histogram"]) == 100
     assert "execution_time_s" in rec and "iterations" in rec
-    assert count_non_convergent(results["MCMC_TPU"]) in (0, 1, 2)
+    assert count_non_convergent(results["MCMC_GPU"]) in (0, 1, 2)
     sp = speedups(results)
     assert isinstance(sp, dict)
     j = save_results_json(str(out), str(tmp_path / "final.json"))
@@ -167,7 +167,7 @@ def test_analysis_bi_matches_coloring_bi(tmp_path):
         ]
     )
     results = parse_results_dir(str(out))
-    r = results["MCMC_TPU"][0]
+    r = results["MCMC_GPU"][0]
     hist = np.zeros(r["n_colors"], np.int64)
     hist[: len(r["histogram"])] = r["histogram"]
     colors = np.repeat(np.arange(r["n_colors"]), hist)
@@ -220,15 +220,15 @@ def test_per_iteration_speedups():
         "MCMC_CPU": [
             {"nodes": 100, "execution_time_s": 10.0, "iterations": 10}
         ],
-        "MCMC_TPU": [
+        "MCMC_GPU": [
             {"nodes": 100, "execution_time_s": 2.0, "iterations": 40}
         ],
     }
     # per-iteration: (10/10) / (2/40) = 20; overall: 10/2 = 5
     sp = per_iteration_speedups(results)
-    assert abs(sp["MCMC_CPU/MCMC_TPU"][100] - 20.0) < 1e-9
+    assert abs(sp["MCMC_CPU/MCMC_GPU"][100] - 20.0) < 1e-9
     overall = speedups(results)
-    assert abs(overall["MCMC_CPU/MCMC_TPU"][100] - 5.0) < 1e-9
+    assert abs(overall["MCMC_CPU/MCMC_GPU"][100] - 5.0) < 1e-9
 
 
 def test_cli_active_bucketed_runs(tmp_path):

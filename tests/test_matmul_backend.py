@@ -1,4 +1,4 @@
-"""Dense-adjacency MXU backend (ops/dense_adj.py, mcmc backend='matmul').
+"""Adjacency-contraction backend (ops/dense_adj.py, mcmc backend='matmul').
 
 The matmul formulation must be *distribution-identical* to the gather
 paths: same occupancy, same proposal q, same inverse-CDF choice given the
@@ -100,10 +100,13 @@ def test_chain_matmul_hastings(small_er):
     assert check_coloring(small_er, c.colors)
 
 
+_GB16 = 16 * 1024**3  # the capacity the gates were first sized for
+
+
 def test_dense_adj_gates(small_er):
-    assert not dense_adj_ok(200_000)
-    assert not dense_adj_ok(1024, d_mean=3.0)  # tiny gather volume
-    assert dense_adj_ok(102_400, d_mean=1000.0)
+    assert not dense_adj_ok(200_000, _GB16)
+    assert not dense_adj_ok(1024, _GB16, d_mean=3.0)  # tiny gather volume
+    assert dense_adj_ok(102_400, _GB16, d_mean=1000.0)
     with pytest.raises(ValueError):
         MCMCColorer(
             small_er, _params(small_er), backend="matmul", layout="bucketed"
@@ -180,28 +183,43 @@ def test_packed_nc_multiwindow():
     assert np.array_equal(np.asarray(nc_d), np.asarray(nc_p))
 
 
-def test_packed_nc_pallas_matches_dense():
-    """The bit-matmul kernel (interpret mode on CPU) reproduces the dense
-    NC bit-exactly, including k-window padding, multi-window graphs and a
-    color-block count that must divide n_col_pad (1152 -> bc=384)."""
+@pytest.mark.parametrize(
+    "n, p, n_colors, strip",
+    [
+        (1000, 0.05, 100, False),    # one K window, n_col_pad 128
+        (1000, 0.05, 1100, False),   # n_col_pad 1152
+        (1000, 0.05, 3000, False),   # n_col_pad 3072
+        (1000, 0.05, 1100, True),    # strip rows != n_pad
+        (4700, 0.01, 100, False),    # two K windows
+        (4700, 0.01, 1100, True),
+        (4700, 0.01, 3000, True),
+    ],
+)
+def test_packed_nc_windows_palettes_strips(n, p, n_colors, strip):
+    """Packed NC (the XLA unpack + int8 contraction) against a plain
+    per-edge count, over one and several 4096-column windows, padded
+    palettes of 128/1,152/3,072 columns, and a row strip whose height
+    differs from n_pad (the sharded formulation)."""
     from mcmc_colorer_tpu.graph.generate import erdos_renyi
     from mcmc_colorer_tpu.ops.dense_adj import build_packed_adjacency
-    from mcmc_colorer_tpu.ops.pallas_bitmatmul import packed_nc_pallas
 
-    for n, p, ncol in [(1500, 0.05, 150), (4700, 0.01, 1100), (640, 0.3, 64)]:
-        g = erdos_renyi(n, p, seed=2)
-        ell = g.to_ell(pad_nodes_to=128)
-        adj_d = build_dense_adjacency(g, ell.n_pad)
-        adj_p = build_packed_adjacency(g, ell.n_pad)
-        key = jax.random.key(5)
-        colors = jnp.where(
-            ell.node_mask,
-            jax.random.randint(key, (ell.n_pad,), 0, ncol, jnp.int32),
-            jnp.int32(-1),
-        )
-        nc_d = neighbor_color_counts(adj_d, colors, ncol)
-        nc_k = packed_nc_pallas(adj_p, colors, nc_d.shape[1])
-        assert np.array_equal(np.asarray(nc_d), np.asarray(nc_k)), (n, p)
+    g = erdos_renyi(n, p, seed=2, use_native=False)
+    ell = g.to_ell(pad_nodes_to=128)
+    n_pad = ell.n_pad
+    adj_p = build_packed_adjacency(g, n_pad)
+    rng = np.random.default_rng(n + n_colors)
+    colors = rng.integers(0, n_colors, size=n_pad).astype(np.int32)
+    colors[n:] = n_colors  # phantom: out of palette
+    n_col_pad = (n_colors + 127) // 128 * 128
+    want = np.zeros((n_pad, n_col_pad), np.int64)
+    src = np.repeat(np.arange(n), np.diff(g.row_ptr))
+    np.add.at(want, (src, colors[g.cols]), 1)
+    r0, r1 = (128, 384) if strip else (0, n_pad)
+    got = neighbor_color_counts(
+        adj_p[r0:r1], jnp.asarray(colors), n_colors, ell.node_mask
+    )
+    assert got.shape == (r1 - r0, n_col_pad)
+    np.testing.assert_array_equal(np.asarray(got), want[r0:r1])
 
 
 def test_sweep_matmul_packed_bitexact(medium_er):
@@ -251,10 +269,11 @@ def test_packed_duplicate_edges():
 def test_packed_adj_gates():
     from mcmc_colorer_tpu.ops.dense_adj import packed_adj_ok
 
-    assert not packed_adj_ok(102_400)          # dense regime: dense wins
-    assert not packed_adj_ok(300_000)          # above the packed cap
-    assert packed_adj_ok(204_800, d_mean=500.0)
-    assert not packed_adj_ok(204_800, d_mean=50.0)  # gather already cheaper
+    assert not packed_adj_ok(102_400, _GB16)   # dense regime: dense wins
+    assert not packed_adj_ok(300_000, _GB16)   # above the packed cap
+    assert packed_adj_ok(204_800, _GB16, d_mean=500.0)
+    # gather already cheaper
+    assert not packed_adj_ok(204_800, _GB16, d_mean=50.0)
 
 
 def test_chain_matmul_packed_valid(medium_er):
@@ -341,60 +360,12 @@ def test_get_adjacency_cache(medium_er):
     assert set(g._adj_cache) == {(ell.n_pad, "dense"), (ell.n_pad, "packed")}
 
 
-def test_amortize_switch_iter():
-    from mcmc_colorer_tpu.ops import dense_adj
-    from mcmc_colorer_tpu.ops.dense_adj import (
-        amortize_switch_iter,
-        estimate_build_s,
-        estimate_gather_sweep_s,
-        estimate_matmul_sweep_s,
-    )
-
-    dense_adj.measured_build_rates.clear()
-    try:
-        # with the happy-path rate actually observed (as a real build on
-        # this machine records), the headline regime switches well within
-        # the 250-iteration budget
-        dense_adj.measured_build_rates["dense"] = (
-            dense_adj.ADJ_BUILD_SLOTS_S["dense"]
-        )
-        s = amortize_switch_iter(102_400, 1152, "dense", 250)
-        assert s is not None and 0 < s < 250
-        # the switch point charges ~the build cost to the gather phase
-        assert s * estimate_gather_sweep_s(
-            102_400, 1152
-        ) >= estimate_build_s(102_400, 1152)
-        # tiny budget: can never recoup the build
-        assert amortize_switch_iter(102_400, 1152, "dense", 4) is None
-        # gather already cheap (low degree): matmul never wins
-        assert (
-            estimate_matmul_sweep_s(102_400, "dense")
-            > estimate_gather_sweep_s(102_400, 16)
-        ) == (amortize_switch_iter(102_400, 16, "dense", 250) is None)
-        # a measured gather rate overrides the model estimate: an
-        # observed-slow gather pulls the switch point earlier
-        s_slow = amortize_switch_iter(102_400, 1152, "dense", 250,
-                                      gather_s=10.0)
-        assert s_slow is not None and s_slow < s
-    finally:
-        dense_adj.measured_build_rates.clear()
-    # with NO measurement anywhere, the estimate is pessimistic
-    # (ADJ_BUILD_PESSIMISM x the constant) — a 100x-off model must not
-    # fire a switch the run cannot recoup (VERDICT r3 item 1c)
-    assert estimate_build_s(102_400, 1152, "dense") == pytest.approx(
-        102_400 * 1152 / dense_adj.ADJ_BUILD_SLOTS_S["dense"]
-        * dense_adj.ADJ_BUILD_PESSIMISM
-    )
-
-
 def test_build_stats_and_calibration(small_er):
     """get_adjacency fills per-phase stats; warning-free builds (VERDICT
-    r3 items 1a and 4); large-build rates go to the calibration store."""
+    r3 items 1a and 4)."""
     import warnings
 
-    from mcmc_colorer_tpu.ops import dense_adj
     from mcmc_colorer_tpu.ops.dense_adj import adjacency_nnz, get_adjacency
-    from mcmc_colorer_tpu.utils import calibration
 
     g = small_er
     ell = g.to_ell(pad_nodes_to=8)
@@ -410,11 +381,6 @@ def test_build_stats_and_calibration(small_er):
     stats2 = {}
     get_adjacency(g, ell.n_pad, "packed", ell, stats=stats2)
     assert stats2["cached"] is True
-    # a small build must NOT pollute the calibration store
-    assert "packed" not in dense_adj.measured_build_rates or (
-        ell.n_pad * ell.neighbors.shape[1] >= 8_000_000
-    )
-    calibration.reset_for_tests()
 
 
 def test_simple_certified_skips_nnz_check(small_er):
@@ -434,40 +400,6 @@ def test_simple_certified_skips_nnz_check(small_er):
         side_effect=AssertionError("must not be called"),
     ):
         dense_adj.get_adjacency(g, ell.n_pad, "dense", ell)
-
-
-def test_adaptive_switch_bitexact(medium_er):
-    """A mid-run pallas->matmul switch produces the same chain as either
-    backend alone (shared key schedule)."""
-    # a palette hard enough that the chain outlives the first segment
-    # (INIT_BUDGET=1 iteration) — otherwise the switch never arms
-    p = _params(medium_er, tailcut=True)
-    p = MCMCParams(
-        n_colors=max(2, medium_er.max_degree // 3),
-        proposal=p.proposal,
-        tailcut=True,
-        max_iterations=30,
-    )
-    r_mm = MCMCColorer(medium_er, p, backend="matmul").run(seed=31)
-    c_ad = MCMCColorer(medium_er, p, backend="pallas")
-    # arm the deferred-matmul machinery by hand (auto only arms on TPU)
-    import jax
-    from functools import partial
-
-    from mcmc_colorer_tpu.models.mcmc import _chain_segment_matmul
-
-    c_ad._switch_iter = 1
-    c_ad._adj_kind = "dense"
-    c_ad._jit_segment_matmul = jax.jit(
-        partial(_chain_segment_matmul, params=p, block=c_ad.block)
-    )
-    r_ad = c_ad.run(seed=31)
-    assert c_ad._adj is not None  # the switch actually happened
-    assert np.array_equal(r_mm.colors, r_ad.colors)
-    assert r_mm.iterations == r_ad.iterations
-    # second run reuses the built adjacency from iteration 0
-    r_ad2 = c_ad.run(seed=31)
-    assert np.array_equal(r_mm.colors, r_ad2.colors)
 
 
 def test_matmul_refuses_duplicate_edges():

@@ -179,7 +179,7 @@ def test_sequential_mcmc_converges(small_er):
     assert r.converged
 
 
-def test_sequential_and_tpu_agree_statistically(small_er):
+def test_sequential_and_device_agree_statistically(small_er):
     """Outcome-metric agreement (SURVEY §10 hard part 4): both chains
     converge and produce similar used-color counts on the same graph."""
     n_col = small_er.max_degree

@@ -68,9 +68,8 @@ def test_active_rejects_hastings(small_er):
 
 
 def test_bucket_ladder_rounds_to_tile_multiples():
-    """User-supplied min_bucket must be rounded to 128 multiples — the
-    pallas kernels assert cap % 128 == 0 (review finding: min_bucket=100
-    would trace-crash on the TPU backend only)."""
+    """User-supplied min_bucket is rounded to 128 multiples, and the
+    ladder ends at n_pad."""
     from mcmc_colorer_tpu.models.mcmc_active import _buckets, pick_cap
 
     caps = _buckets(4096, min_bucket=100, factor=4)

@@ -63,11 +63,11 @@ def test_active_iteration_bit_matches_ell_rows():
     cnt = _cnt_of(ell_host, colors, params=params)
     a = _active_iteration(
         ell_host, colors, taboo, cnt, k_it,
-        cap=256, params=params, backend="xla",
+        cap=256, params=params,
     )
     b = _active_iteration(
         c.ell, colors, taboo, cnt, k_it,
-        cap=256, params=params, backend="xla",
+        cap=256, params=params,
         adj_packed=c.adj, d_row=d_row,
     )
     for x, y, name in zip(a, b, ("colors", "taboo", "cnt")):

@@ -52,12 +52,12 @@ def test_mcmc_chain_segment1_equals_oneshot(g):
     key = rngu.for_repetition(rngu.root_key(3), 0)
 
     colors1, rip1, conf1, trace1, _ = jax.jit(
-        lambda e, k: _run_chain(e, k, params=p, block=block, backend="xla")
+        lambda e, k: _run_chain(e, k, params=p, block=block)
     )(ell, key)
 
     seg = jax.jit(
         lambda e, c, b: _chain_segment(
-            e, c, b, params=p, block=block, backend="xla"
+            e, c, b, params=p, block=block
         )
     )
     z = p.tailcut_threshold(g.n)
@@ -202,7 +202,7 @@ def test_luby_bucketed_segment1_equals_oneshot(g):
 
 
 def test_luby_matmul_equals_gather(g):
-    """The dense-adjacency (MXU) Luby rounds are bit-identical to the
+    """The dense-adjacency Luby rounds are bit-identical to the
     gather rounds: same coin flips, same higher-degree-wins survival
     (check_conflicts_k, coloringLuby.cu:269-276) including ties."""
     from mcmc_colorer_tpu.models.luby import (
@@ -327,7 +327,7 @@ def test_ensemble_segmented_matches_individual_chains(g):
         key = rngu.for_chain(root, jnp.uint32(c))
         colors, rip, conf, _, _ = jax.jit(
             lambda e, k: _run_chain(
-                e, k, params=p, block=block, backend="xla"
+                e, k, params=p, block=block
             )
         )(ell, key)
         assert summaries[c]["iterations"] == int(rip)

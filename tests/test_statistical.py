@@ -1,4 +1,4 @@
-"""Statistical equivalence: the TPU chain must match the sequential
+"""Statistical equivalence: the device chain must match the sequential
 reference-semantics chain on OUTCOME metrics across seeds (SURVEY §10 hard
 part 4) — used colors, iterations-to-converge, balance index — since the
 always-accept dynamics have no fixed stationary distribution to compare.
@@ -31,7 +31,7 @@ def _run_many(colorer_factory, seeds):
     return np.array(used), np.array(iters), np.array(bi)
 
 
-def test_tpu_matches_sequential_outcomes(er300):
+def test_device_matches_sequential_outcomes(er300):
     p = MCMCParams(n_colors=er300.max_degree, proposal=ProposalKind.STANDARD)
     seq_used, seq_iters, seq_bi = _run_many(
         lambda: SequentialMCMCColorer(er300, p), SEEDS

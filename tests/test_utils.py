@@ -64,7 +64,7 @@ def test_analysis_plots(tmp_path):
     )
 
     fake = {
-        "MCMC_TPU": [
+        "MCMC_GPU": [
             {
                 "nodes": 100,
                 "prob": 0.1,
@@ -97,26 +97,36 @@ def test_analysis_plots(tmp_path):
             assert (tmp_path / f"{name}.png").exists()
 
 
-def test_compcache_enable(tmp_path, monkeypatch):
-    from mcmc_colorer_tpu.utils import compcache
-
-    d = str(tmp_path / "xla_cache")
-    got = compcache.enable(d)
-    assert got == d
+def test_compcache_enable(monkeypatch):
+    """Without JAX_COMPILATION_CACHE_DIR the cache goes to one fixed
+    path inside the checkout."""
     import os
 
-    assert os.path.isdir(d)
+    import jax
+
+    from mcmc_colorer_tpu.utils import compcache
+
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    old = jax.config.jax_compilation_cache_dir
+    try:
+        got = compcache.enable()
+        assert got == compcache.DEFAULT_DIR
+        assert jax.config.jax_compilation_cache_dir == got
+        repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        assert got == os.path.join(repo, ".jax_cache")
+    finally:
+        jax.config.update("jax_compilation_cache_dir", old)
 
 
 def test_compcache_boolean_env(monkeypatch, tmp_path):
-    """MCMC_COLORER_COMPILE_CACHE=1 is the documented on-switch: it must
-    select the default cache dir, not create a directory named '1'
-    (round-4 regression found in-tree)."""
+    """With JAX_COMPILATION_CACHE_DIR set, the cache is JAX's own at that
+    path: enable() reports it and sets no directory of its own."""
+    import jax
+
     from mcmc_colorer_tpu.utils import compcache
 
-    monkeypatch.setenv("MCMC_COLORER_COMPILE_CACHE", "1")
-    got = compcache.enable()
-    assert got == compcache._DEFAULT_DIR
-    explicit = str(tmp_path / "xc")
-    monkeypatch.setenv("MCMC_COLORER_COMPILE_CACHE", explicit)
-    assert compcache.enable() == explicit
+    env_dir = str(tmp_path / "xc")
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", env_dir)
+    old = jax.config.jax_compilation_cache_dir
+    assert compcache.enable() == env_dir
+    assert jax.config.jax_compilation_cache_dir == old
